@@ -35,7 +35,7 @@ def _build_parser() -> argparse.ArgumentParser:
                         help="YAML file with the rendering profile")
     render.add_argument("--checkpoint", default=None, metavar="PATH",
                         help="Persist/resume the accumulation buffer at PATH "
-                             "(TPU addition; the reference never persists "
+                             "(an addition; the reference never persists "
                              "progressive passes)")
     render.add_argument("--checkpoint-every", type=int, default=0,
                         metavar="N", help="Checkpoint every N samples "
@@ -50,18 +50,10 @@ def _build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _enable_compilation_cache() -> None:
-    """Persistent XLA compilation cache: CLI invocations are one-shot
-    processes, so without this every render pays full (remote) compilation."""
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/path_tracer_tpu/xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-
 def run_render(args) -> None:
-    _enable_compilation_cache()
+    from path_tracer_tpu.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     from path_tracer_tpu.config import Profile
     from path_tracer_tpu.scene import load_scene
     from path_tracer_tpu.utils.image_io import save_png

@@ -1,6 +1,6 @@
 """Wavefront unidirectional Monte Carlo path-tracing integrator.
 
-This is the TPU-native redesign of the reference's per-pixel recursive
+This is the accelerator-native redesign of the reference's per-pixel recursive
 integrator (ref: src/renderer/mod.rs:171-333). Instead of per-pixel recursion
 with variable-length sorted hit lists, path state lives in fixed-shape SoA
 arrays over a ray wavefront, advanced by bounded, unrolled kernel stages —
@@ -78,10 +78,9 @@ class IntegratorSpec:
     differentiable: bool = True
     # Live-ray compaction between bounces (SURVEY §2c experiment): partition
     # every wavefront array alive-first before each bounce so dead lanes
-    # cluster into all-dead tiles. Measured on the showcase: the partition's
-    # argsort + gathers cost more than dead-lane masking saves (the flat
-    # kernels already early-exit all-dead tiles), so this defaults OFF —
-    # see PERF.md "compaction experiment".
+    # cluster into all-dead tiles. On the earlier accelerator the
+    # partition's argsort + gathers cost more than dead-lane masking saved,
+    # so this defaults OFF; not measured on the GPU.
     compact: bool = False
 
 
@@ -104,22 +103,15 @@ def _tri_attr(scene, hit: HitRecord):
     """[R,ATTR_W] packed shading-attribute rows for hits, or None.
 
     One wide gather of scene.sl_attr replaces the ~12 narrow per-primitive
-    gathers shading otherwise issues (TPU gather cost is ~row-width-invariant;
-    see DeviceScene.sl_attr). Kernel paths report the slot id directly
-    (hit.packed); sphere hits carry packed = sph_row_base + index (their
-    material-only rows); jnp fallback paths map global->slot via sl_inv.
+    gathers shading otherwise issues (see DeviceScene.sl_attr). Sphere hits
+    carry packed = sph_row_base + index (their material-only rows); triangle
+    hits report global prim ids, mapped global->slot via sl_inv.
     Miss lanes read slot 0 — their values are masked out by callers.
     """
     if not (getattr(scene, "use_bvh", False) and scene.num_real_triangles):
         return None
-    from path_tracer_tpu.ops.intersect import _on_tpu
-
-    packed = hit.packed
-    if not _on_tpu():
-        # CPU BVH walk reports global prim ids only (sphere lanes already
-        # carry their row id from the closest_hit merge).
-        prim = jnp.minimum(jnp.maximum(hit.prim, 0), scene.sl_inv.shape[0] - 1)
-        packed = jnp.where(packed >= 0, packed, scene.sl_inv[prim])
+    prim = jnp.minimum(jnp.maximum(hit.prim, 0), scene.sl_inv.shape[0] - 1)
+    packed = jnp.where(hit.packed >= 0, hit.packed, scene.sl_inv[prim])
     return scene.sl_attr[jnp.maximum(packed, 0)]
 
 
@@ -300,19 +292,6 @@ def _surface(scene, hit: HitRecord, o, d, row=None,
                    model=model, simple=simple)
 
 
-def _defer_prim(scene) -> bool:
-    """True when the integrator's casts may skip the sl_map packed->global
-    prim-id gather (ops.intersect.closest_hit defer_prim): TPU BVH-kernel
-    paths shade through the wide sl_attr rows (hit.packed), and the global
-    triangle id is never consumed — sphere lanes carry their own index.
-    The CPU BVH walk still needs prim (its sl_inv mapping), so CPU keeps
-    the gather."""
-    from path_tracer_tpu.ops.intersect import _on_tpu
-
-    return bool(getattr(scene, "use_bvh", False)
-                and scene.num_real_triangles and _on_tpu())
-
-
 def _alpha_walk(scene, o, d, walking, pixel_ids, sample_id, bounce, spec,
                 steps: int):
     """Stochastic alpha-transparency hit walk (ref mod.rs:188-205).
@@ -338,8 +317,7 @@ def _alpha_walk(scene, o, d, walking, pixel_ids, sample_id, bounce, spec,
     if steps == 1 and scene.all_opaque:
         t_prev = jnp.full((r,), -1.0, jnp.float32)
         hit = closest_hit(o, d, t_prev, scene, block=spec.tri_block,
-                          active=walking if scene.use_bvh else None,
-                          defer_prim=_defer_prim(scene))
+                          active=walking if scene.use_bvh else None)
         found = walking & hit.valid
         sel = HitRecord(*[jnp.where(found, h, s) for h, s in zip(hit, sel0)])
         sel = jax.lax.stop_gradient(sel)
@@ -358,8 +336,7 @@ def _alpha_walk(scene, o, d, walking, pixel_ids, sample_id, bounce, spec,
     def step(carry):
         k, sel, seen_any, t_prev, active = carry
         hit = closest_hit(o, d, t_prev, scene, block=spec.tri_block,
-                          active=active if scene.use_bvh else None,
-                          defer_prim=_defer_prim(scene))
+                          active=active if scene.use_bvh else None)
         found = active & hit.valid
         # Opacity of this candidate hit at its own UV/type.
         walk_row = _tri_attr(scene, hit)
@@ -399,9 +376,9 @@ def _alpha_walk(scene, o, d, walking, pixel_ids, sample_id, bounce, spec,
 def _hits_transparent_bounds(scene, o, d, t_max):
     """[R] bool: can the segment o + t d, t in (0, t_max], touch ANY
     transparent-cluster AABB (scene.tr_prefilter, 32 boxes)? Pure fused
-    elementwise XLA — no gather, no kernel launch — so it costs far less
-    than the per-chunk cast launches it lets the partitioned walks skip
-    (those are launch-overhead bound; PERF.md round 3). Conservative:
+    elementwise XLA — no gather, no kernel launch — so it is cheap next to
+    the per-chunk cast launches it lets the partitioned walks skip.
+    Conservative:
     padding boxes are degenerate far points that never pass."""
     boxes = scene.tr_prefilter  # [P,6]
     inv = 1.0 / d  # [R,3]; IEEE inf on zero components
@@ -423,9 +400,8 @@ def _walk_chunks(r: int) -> int:
     lanes) for the GLOBAL max iteration count; mapping the walk over C
     chunks pays each chunk only its own max — under Morton pixel order the
     transparent geometry clusters, so most chunks drain in 0-1 iterations
-    (measured: mean 0.4 / max 4 crossings on the textured showcase; chunk
-    sweep on the 2^18-lane bench wavefront: 5577 ms unchunked -> 2374 ms at
-    2048-lane chunks, PERF.md round 3). Default: 2048-lane chunks.
+    (on the textured showcase rays cross at most 4 transparent surfaces).
+    Default: 2048-lane chunks.
     PT_WALK_CHUNKS overrides the chunk COUNT (1 disables)."""
     import os
 
@@ -441,140 +417,83 @@ def _use_dense_tr(scene) -> bool:
 
     When the transparent partition is small (foliage cards, decals — the
     reference's alpha content is exactly this shape), the bounded walks can
-    precompute EVERY candidate hit + its opacity up front (one
-    k_nearest_tr_hits Pallas launch on TPU / one fused MT matrix pass on
-    CPU) and collapse to a statically-unrolled column loop of pure vector
-    math — value-identical to the per-iteration cast walk (same strict
-    t > t_prev advance, same MT math — ops/intersect.py:59-83; gated by
+    precompute EVERY candidate hit + its opacity up front (one fused MT
+    matrix pass) and collapse to a statically-unrolled column loop of pure
+    vector math — value-identical to the per-iteration cast walk (same
+    strict t > t_prev advance, same MT math — ops/intersect.py; gated by
     test_partition.test_dense_tr_walk_matches_cast_walk).
 
-    DEFAULT: ON for CPU/interpret backends (one fused pass beats many
-    scanned casts), OFF on TPU. On the chip the cast walk is already at
-    its gather-bound floor and the column design measured SLOWER — the
-    opacity precompute pays kk/0.4 ~ 15x the cast walk's gather volume
-    (TPU gathers cost ~20-50 ns/lane regardless of width) and the k-hit
-    kernel (~19 ms per 2^18-ray all-active launch) costs about what the
-    per-iteration cast launches it replaces cost (~0.32 ms x ~64 active
-    chunk-iterations) — see PERF.md round 3 "dense transparent walk".
-    PT_DENSE_TR=1 forces it on (A/B); PT_NO_DENSE_TR=1 forces the cast
-    walk; PT_DENSE_TR_MAX bounds the transparent-slice size."""
+    On by default up to PT_DENSE_TR_MAX (4096) transparent triangles, on
+    the CPU and the GPU alike: on the GPU the cast walk's chunked
+    while_loops are launch-bound (PERF.md, H100 bring-up), the dense walk
+    is a few large fusions. PT_NO_DENSE_TR=1 forces the cast walk (A/B +
+    parity testing)."""
     import os
 
     if os.environ.get("PT_NO_DENSE_TR") == "1":
         return False
     t = scene.tri_v0.shape[0] - scene.n_tris_opaque
-    if not 0 < t <= int(os.environ.get("PT_DENSE_TR_MAX", "4096")):
-        return False
-    if os.environ.get("PT_DENSE_TR") == "1":
-        return True
-    from path_tracer_tpu.ops.intersect import _on_tpu
-
-    return not _on_tpu()
+    return 0 < t <= int(os.environ.get("PT_DENSE_TR_MAX", "4096"))
 
 
-def _use_tr_kernel(scene, spec) -> bool:
-    """Static gate for the FUSED in-kernel transparent walks
-    (ops/pallas_trwalk.py): the whole bounded walk — candidate search,
-    uv interpolation, opacity texel fetch, accept/transmittance update —
-    runs inside ONE Pallas launch per walk, per 256-ray tile. Replaces the
-    chunked XLA cast walks whose floor was per-chunk launch overhead plus
-    per-iteration row/atlas gathers (PERF.md round 3). Scene preconditions
-    are checked at build (DeviceScene.tr_kernel_ok). PT_NO_TRWALK_KERNEL=1
-    forces the XLA walks (A/B + parity testing); on CPU the kernel runs in
-    interpret mode (slow) only when PT_TRWALK_INTERPRET=1 (parity tests).
-    """
-    import os
-
-    if os.environ.get("PT_NO_TRWALK_KERNEL") == "1":
-        return False
-    if not getattr(scene, "tr_kernel_ok", False):
-        return False
-    # Training mode (spec.differentiable): the kernels read a LIVE opacity-
-    # factor row (rebuilt per dispatch from mat_opacity_factor) AND a LIVE
-    # f32 texture page plane (rebuilt per dispatch from tex_data, fetched
-    # with the exact HIGHEST-precision one-hot matmul — pallas_trwalk
-    # _tex_plane/_texel), so both factor and opacity-TEXTURE training stay
-    # value-correct through the kernel walks (gradients w.r.t. tex_data are
-    # unaffected either way — walks are detached discrete events in both
-    # paths; test_trwalk.test_training_updates_opacity_texture pins it).
-    from path_tracer_tpu.ops.intersect import _on_tpu
-
-    return _on_tpu() or os.environ.get("PT_TRWALK_INTERPRET") == "1"
-
-
-def _tr_kernel_interpret() -> bool:
-    from path_tracer_tpu.ops.intersect import _on_tpu
-
-    return not _on_tpu()
-
-
-def _dense_tr_hits(scene, o, d, steps, active, t_max=None):
+def _dense_tr_hits(scene, o, d, steps):
     """(ts, pos) [min(steps,T), R]: each ray's `steps` nearest transparent
-    hits, produced up front for a FULL wavefront in one pass: on TPU by ONE
-    k_nearest_tr_hits Pallas launch (whole transparent table VMEM-resident,
-    all-inactive 128-ray tiles skipped), elsewhere by a component-major jnp
-    MT matrix pass (only [R,T] 2D intermediates — a [R,T,3] f32 array tiles
-    its trailing dim 3 -> 128 on TPU, a 42x memory blowup; same trick as
-    _sphere_quadratic) + `steps` argmin passes. Both producers emit the
-    SAME contract: ascending t with the cast walk's strict t > t_prev
+    hits, produced up front for a FULL wavefront in one pass: a
+    component-major jnp MT matrix pass (only [R,T] 2D intermediates, never
+    [R,T,3]; same trick as _sphere_quadratic) + `steps` argmin passes.
+    Contract: ascending t with the cast walk's strict t > t_prev
     duplicate-skip baked in, +inf past the end, ties to the lowest triangle
-    index (jnp.argmin order)."""
-    from path_tracer_tpu.ops.intersect import DET_EPS, T_MIN, _on_tpu
+    index (jnp.argmin order). Inactive lanes are masked by the walks."""
+    from path_tracer_tpu.ops.intersect import DET_EPS, T_MIN
 
     c = scene.n_tris_opaque
     tri_v0, tri_e1, tri_e2 = scene.tri_v0, scene.tri_e1, scene.tri_e2
     # The auto walk bound (`steps` = num_transparent_hits + 1) can be the
     # WHOLE transparent set — free for the early-exiting cast walk, ruinous
-    # for a precompute. Cap the precomputed hits at PT_DENSE_TR_K (measured
-    # max productive crossings on the textured showcase: 4); iterations past
+    # for a precompute. Cap the precomputed hits at PT_DENSE_TR_K (max
+    # productive crossings on the textured showcase: 4); iterations past
     # the cap fall back to exact per-iteration casts in the residual walk,
     # so semantics never truncate.
     kk = _dense_k(scene, steps)
-    if _on_tpu():
-        from path_tracer_tpu.ops.pallas_intersect import k_nearest_tr_hits
+    ox, oy, oz = (o[:, k : k + 1] for k in range(3))  # [R,1]
+    dx, dy, dz = (d[:, k : k + 1] for k in range(3))
+    v0x, v0y, v0z = (tri_v0[c:, k][None, :] for k in range(3))  # [1,T]
+    ax, ay, az = (tri_e1[c:, k][None, :] for k in range(3))  # e1
+    bx, by, bz = (tri_e2[c:, k][None, :] for k in range(3))  # e2
+    px = dy * bz - dz * by  # pvec = d x e2, [R,T]
+    py = dz * bx - dx * bz
+    pz = dx * by - dy * bx
+    det = ax * px + ay * py + az * pz
+    valid = jnp.abs(det) >= DET_EPS
+    inv = 1.0 / jnp.where(valid, det, 1.0)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z  # tvec
+    u = (tx * px + ty * py + tz * pz) * inv
+    valid &= (u >= 0.0) & (u <= 1.0)
+    qx = ty * az - tz * ay  # qvec = tvec x e1
+    qy = tz * ax - tx * az
+    qz = tx * ay - ty * ax
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    valid &= (v >= 0.0) & (u + v <= 1.0)
+    t = (bx * qx + by * qy + bz * qz) * inv
+    valid &= t >= T_MIN
+    tm = jnp.where(valid, t, jnp.inf)  # [R,T]
 
-        ts, pos = k_nearest_tr_hits(o, d, active, scene, kk, t_max=t_max)
-    else:
-        ox, oy, oz = (o[:, k : k + 1] for k in range(3))  # [R,1]
-        dx, dy, dz = (d[:, k : k + 1] for k in range(3))
-        v0x, v0y, v0z = (tri_v0[c:, k][None, :] for k in range(3))  # [1,T]
-        ax, ay, az = (tri_e1[c:, k][None, :] for k in range(3))  # e1
-        bx, by, bz = (tri_e2[c:, k][None, :] for k in range(3))  # e2
-        px = dy * bz - dz * by  # pvec = d x e2, [R,T]
-        py = dz * bx - dx * bz
-        pz = dx * by - dy * bx
-        det = ax * px + ay * py + az * pz
-        valid = jnp.abs(det) >= DET_EPS
-        inv = 1.0 / jnp.where(valid, det, 1.0)
-        tx, ty, tz = ox - v0x, oy - v0y, oz - v0z  # tvec
-        u = (tx * px + ty * py + tz * pz) * inv
-        valid &= (u >= 0.0) & (u <= 1.0)
-        qx = ty * az - tz * ay  # qvec = tvec x e1
-        qy = tz * ax - tx * az
-        qz = tx * ay - ty * ax
-        v = (dx * qx + dy * qy + dz * qz) * inv
-        valid &= (v >= 0.0) & (u + v <= 1.0)
-        t = (bx * qx + by * qy + bz * qz) * inv
-        valid &= t >= T_MIN
-        tm = jnp.where(valid, t, jnp.inf)  # [R,T]
-
-        # `steps` argmin passes (NOT lax.top_k — its sort crashes the TPU
-        # worker when nested under the samples-scan, and K passes are
-        # cheaper for K<=~6 anyway). Each pass knocks out every entry with
-        # t <= the selected t = the cast walk's strict t > t_prev advance:
-        # EXACT duplicate ts (shared foliage-card edges report both
-        # triangles at one t) are skipped; ties pick the lowest triangle
-        # index like the argmin a cast runs.
-        ts_cols, pos_cols = [], []
-        work = tm
-        for _ in range(kk):
-            j = jnp.argmin(work, axis=1)
-            tj = jnp.min(work, axis=1)
-            ts_cols.append(tj)
-            pos_cols.append(j.astype(jnp.int32))
-            work = jnp.where(work <= tj[:, None], jnp.inf, work)
-        ts = jnp.stack(ts_cols, axis=0)  # [kk,R] ascending, +inf past end
-        pos = jnp.stack(pos_cols, axis=0)
+    # `steps` argmin passes (cheaper than a lax.top_k sort for K<=~6).
+    # Each pass knocks out every entry with
+    # t <= the selected t = the cast walk's strict t > t_prev advance:
+    # EXACT duplicate ts (shared foliage-card edges report both
+    # triangles at one t) are skipped; ties pick the lowest triangle
+    # index like the argmin a cast runs.
+    ts_cols, pos_cols = [], []
+    work = tm
+    for _ in range(kk):
+        j = jnp.argmin(work, axis=1)
+        tj = jnp.min(work, axis=1)
+        ts_cols.append(tj)
+        pos_cols.append(j.astype(jnp.int32))
+        work = jnp.where(work <= tj[:, None], jnp.inf, work)
+    ts = jnp.stack(ts_cols, axis=0)  # [kk,R] ascending, +inf past end
+    pos = jnp.stack(pos_cols, axis=0)
     return ts, pos
 
 
@@ -591,10 +510,8 @@ def _dense_hit_columns(scene, o, d, ts, pos):
 
     Reconstructs u/v/backface for all kk*R (ray, hit) pairs in ONE batched
     pass: the triangle data comes from a single gather of the [9, T] packed
-    table (column-major — the output [9, kk*R] keeps the long axis on
-    lanes; a [N,3] gather would pad its trailing dim 3 -> 128, a 42x
-    blowup that made per-iteration recomputes slower than the casts they
-    replaced). Same MT formulas as ops/intersect.py:59-83; `packed` via
+    table (column-major — the output [9, kk*R] keeps the long axis
+    contiguous). Same MT formulas as ops/intersect.py; `packed` via
     sl_inv like the jnp fallback paths. Exhausted entries (t=+inf) carry
     kind NONE.
     """
@@ -669,8 +586,7 @@ def _alpha_walk_partitioned(scene, o, d, walking, pixel_ids, sample_id,
     t_neg = jnp.full((r,), -1.0, jnp.float32)
     hit_op = jax.lax.stop_gradient(
         closest_hit(o, d, t_neg, ov, block=spec.tri_block,
-                    active=walking if scene.use_bvh else None,
-                    defer_prim=_defer_prim(scene)))
+                    active=walking if scene.use_bvh else None))
     t_op = jnp.where(hit_op.valid, hit_op.t, jnp.inf)
     # Lanes whose segment (up to the opaque terminator) cannot touch any
     # transparent cluster skip the walk entirely (whole chunks go idle).
@@ -690,8 +606,7 @@ def _alpha_walk_partitioned(scene, o, d, walking, pixel_ids, sample_id,
             k, sel, seen, accepted, t_prev, active = carry
             hit = closest_hit(o, d, t_prev, tv, block=spec.tri_block,
                               active=active if scene.use_bvh else None,
-                              include_spheres=False,
-                              defer_prim=_defer_prim(scene))
+                              include_spheres=False)
             found = active & hit.valid & (hit.t < t_op)
             walk_row = _tri_attr(scene, hit)
             model, uv, simple = _hit_model_uv(scene, hit, row=walk_row)
@@ -713,97 +628,18 @@ def _alpha_walk_partitioned(scene, o, d, walking, pixel_ids, sample_id,
 
         return cond, step
 
-    if _use_tr_kernel(scene, spec):
-        # FUSED IN-KERNEL WALK (ops/pallas_trwalk.py): the whole bounded
-        # stochastic walk runs inside one Pallas launch, per-256-tile
-        # iteration counts, zero per-iteration launches/gathers. Lanes
-        # still active past the kernel's static step cap continue in the
-        # exact cast residual below (same pattern as the dense path).
-        from path_tracer_tpu.ops import pallas_trwalk as twk
-
-        kcap = min(steps, twk.TRWALK_K)
-        stride = rng.site_layout(steps)[3]
-        t_op_enc = jnp.where(walk_active, t_op, -1.0)
-
-        def run_kernel(o, d, t_op_enc, pixel_ids, sample_id, bounce):
-            # RNG stack built INSIDE the cond so all-inactive wavefronts
-            # skip the kcap counter-RNG passes too (review round 4).
-            rnd = jnp.stack(
-                [rng.uniform(pixel_ids, sample_id,
-                             rng.SITE_ALPHA + k + stride * bounce,
-                             spec.seed)
-                 for k in range(kcap)], axis=0)
-            return twk.alpha_walk_kernel(
-                scene, o, d, t_op_enc, rnd, kcap,
-                interpret=_tr_kernel_interpret(),
-                live_factor=spec.differentiable)
-
-        def no_hits(o, d, t_op_enc, pixel_ids, sample_id, bounce):
-            z = jnp.zeros((r,), jnp.float32)
-            f = jnp.zeros((r,), jnp.bool_)
-            return (jnp.full((r,), jnp.inf, jnp.float32),
-                    jnp.full((r,), -1, jnp.int32), z, z, f, f, f, f,
-                    jnp.full((r,), -1.0, jnp.float32))
-
-        (sel_t, sel_packed, sel_u, sel_v, sel_bf, seen_tr, accepted,
-         still, t_prev) = jax.lax.stop_gradient(jax.lax.cond(
-            jnp.any(walk_active), run_kernel, no_hits,
-            o, d, t_op_enc, pixel_ids, sample_id, bounce))
-        if _defer_prim(scene):
-            prim = jnp.full_like(sel_packed, -1)  # see closest_hit docs
-        else:
-            prim = jnp.where(
-                sel_packed >= 0,
-                scene.sl_map[jnp.maximum(sel_packed, 0)], 0)
-        sel = HitRecord(
-            t=sel_t,
-            kind=jnp.where(sel_packed >= 0, KIND_TRIANGLE, 0).astype(
-                jnp.int32),
-            prim=prim,
-            u=sel_u, v=sel_v, backface=sel_bf, packed=sel_packed)
-        if kcap < steps:
-            # Residual gated by lax.cond: the while_loop's first-iteration
-            # check alone costs real time per bounce (XLA copies the large
-            # HitRecord carry in/out of the loop even when it runs zero
-            # iterations), and `still` lanes only exist for walks deeper
-            # than the kernel cap (never on the measured scenes).
-            condf, stepf = cast_step(o, d, pixel_ids, t_op)
-
-            def residual(sel, seen_tr, accepted, t_prev, still):
-                out = jax.lax.while_loop(
-                    condf, stepf,
-                    (jnp.int32(kcap), sel, seen_tr, accepted, t_prev,
-                     still))
-                return out[1], out[2], out[3]
-
-            sel, seen_tr, accepted = jax.lax.cond(
-                jnp.any(still), residual,
-                lambda sel, seen_tr, accepted, t_prev, still:
-                    (sel, seen_tr, accepted),
-                sel, seen_tr, accepted, t_prev, still)
-        sel = jax.lax.stop_gradient(sel)
-        seen_tr = jax.lax.stop_gradient(seen_tr)
-        accepted = jax.lax.stop_gradient(accepted)
-        op_found = walking & hit_op.valid
-        use_op = op_found & ~accepted
-        sel = HitRecord(*[jnp.where(use_op, h, s)
-                          for h, s in zip(hit_op, sel)])
-        seen_any = seen_tr | op_found
-        first_missed = walking & ~seen_any
-        return jax.lax.stop_gradient(sel), seen_any, first_missed
-
     dense = _use_dense_tr(scene)
     if dense:
         # DENSE COLUMN WALK: one producer pass yields every candidate hit's
-        # full record AND opacity up front (one kernel launch + batched
+        # full record AND opacity up front (one producer pass + batched
         # gathers); the walk itself is a statically-unrolled column loop of
         # pure vector math — no casts, no gathers, no chunking. Lanes that
         # reject all kk precomputed hits continue in the exact cast
         # residual (rare: kk covers the measured max crossings).
         kk = _dense_k(scene, steps)
 
-        def produce(o, d, act, t_op):
-            ts, pos = _dense_tr_hits(scene, o, d, steps, act, t_max=t_op)
+        def produce(o, d):
+            ts, pos = _dense_tr_hits(scene, o, d, steps)
             hit = _dense_hit_columns(scene, o, d, ts, pos)
             walk_row = _tri_attr(scene, hit)
             model, uv, simple = _hit_model_uv(scene, hit, row=walk_row)
@@ -817,15 +653,15 @@ def _alpha_walk_partitioned(scene, o, d, walking, pixel_ids, sample_id,
         flat = jax.lax.stop_gradient(jax.lax.cond(
             jnp.any(walk_active),
             produce,
-            lambda o, d, a, t: (jnp.full((kk * r,), jnp.inf, jnp.float32),
-                                jnp.zeros((kk * r,), jnp.int32),
-                                jnp.zeros((kk * r,), jnp.int32),
-                                jnp.zeros((kk * r,), jnp.float32),
-                                jnp.zeros((kk * r,), jnp.float32),
-                                jnp.zeros((kk * r,), jnp.bool_),
-                                jnp.full((kk * r,), -1, jnp.int32),
-                                jnp.zeros((kk * r,), jnp.float32)),
-            o, d, walk_active, t_op))
+            lambda o, d: (jnp.full((kk * r,), jnp.inf, jnp.float32),
+                          jnp.zeros((kk * r,), jnp.int32),
+                          jnp.zeros((kk * r,), jnp.int32),
+                          jnp.zeros((kk * r,), jnp.float32),
+                          jnp.zeros((kk * r,), jnp.float32),
+                          jnp.zeros((kk * r,), jnp.bool_),
+                          jnp.full((kk * r,), -1, jnp.int32),
+                          jnp.zeros((kk * r,), jnp.float32)),
+            o, d))
         hcols = HitRecord(*[_cols(x, kk, r) for x in flat[:7]])
         op_cols = _cols(flat[7], kk, r)
 
@@ -969,8 +805,7 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, spec, steps,
             hit = closest_hit(s_o, s_d, t_prev, cast_scene,
                               block=spec.tri_block,
                               active=walking if scene.use_bvh else None,
-                              include_spheres=include_spheres,
-                              defer_prim=_defer_prim(scene))
+                              include_spheres=include_spheres)
             found = walking & hit.valid
             walk_row = _tri_attr(scene, hit)
             model, uv, simple = _hit_model_uv(scene, hit, row=walk_row)
@@ -993,46 +828,6 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, spec, steps,
 
         return cond, step
 
-    if part and _use_tr_kernel(scene, spec):
-        # Fused in-kernel transmittance walk (single light set; the multi-
-        # light caller batches through _shadow_attenuation_multi instead).
-        from path_tracer_tpu.ops import pallas_trwalk as twk
-
-        kcap = min(steps, twk.TRWALK_K)
-        pd1 = (jnp.full((r,), jnp.inf, jnp.float32) if point_dist is None
-               else point_dist)
-        ispt1 = jnp.full((r,), point_dist is not None)
-        sp1 = s_o if surf_pos is None else surf_pos
-        ouv1 = (jnp.zeros((r, 2), jnp.float32) if orig_model_uv is None
-                else orig_model_uv[0])
-        osim1 = (jnp.zeros((r,), jnp.bool_) if orig_model_uv is None
-                 else orig_model_uv[1])
-
-        def run_kernel(s_o, s_d, pd1, ispt1, sp1, ouv1, osim1, w0):
-            return twk.trans_walk_kernel(
-                scene, s_o, s_d, pd1, ispt1, sp1, ouv1, osim1, w0,
-                kcap, interpret=_tr_kernel_interpret(),
-                live_factor=spec.differentiable)
-
-        def no_walk(s_o, s_d, pd1, ispt1, sp1, ouv1, osim1, w0):
-            return (jnp.ones((r,), jnp.float32),
-                    jnp.full((r,), -1.0, jnp.float32),
-                    jnp.zeros((r,), jnp.bool_))
-
-        trans, t_prev1, still1 = jax.lax.stop_gradient(jax.lax.cond(
-            jnp.any(walking0), run_kernel, no_walk,
-            s_o, s_d, pd1, ispt1, sp1, ouv1, osim1, walking0))
-        if kcap < steps:
-            condf, stepf = cast_step(
-                s_o, s_d, point_dist, surf_pos,
-                None if orig_model_uv is None else orig_model_uv[0],
-                None if orig_model_uv is None else orig_model_uv[1])
-            _, trans, _, _ = jax.lax.while_loop(
-                condf, stepf, (jnp.int32(kcap), trans, t_prev1, still1))
-            trans = jax.lax.stop_gradient(trans)
-        att = att0 * trans[:, None]
-        return jnp.where(blocked[:, None], 0.0, att)
-
     dense = part and _use_dense_tr(scene)
     if dense:
         # Dense column walk (see _alpha_walk_partitioned): producer pass +
@@ -1040,9 +835,8 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, spec, steps,
         # over the kk columns; exact cast residual past the cap.
         kk = _dense_k(scene, steps)
 
-        def produce(s_o, s_d, act):
-            ts, pos = _dense_tr_hits(scene, s_o, s_d, steps, act,
-                                     t_max=t_pre)
+        def produce(s_o, s_d):
+            ts, pos = _dense_tr_hits(scene, s_o, s_d, steps)
             hit = _dense_hit_columns(scene, s_o, s_d, ts, pos)
             walk_row = _tri_attr(scene, hit)
             model, uv, simple = _hit_model_uv(scene, hit, row=walk_row)
@@ -1059,9 +853,9 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, spec, steps,
         tcols, opcols = jax.lax.stop_gradient(jax.lax.cond(
             jnp.any(walking0),
             produce,
-            lambda a, b, c: (jnp.full((kk * r,), jnp.inf, jnp.float32),
-                             jnp.zeros((kk * r,), jnp.float32)),
-            s_o, s_d, walking0))
+            lambda a, b: (jnp.full((kk * r,), jnp.inf, jnp.float32),
+                          jnp.zeros((kk * r,), jnp.float32)),
+            s_o, s_d))
         tcols = _cols(tcols, kk, r)
         opcols = _cols(opcols, kk, r)
 
@@ -1123,192 +917,15 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, spec, steps,
     return att
 
 
-def _use_fused_shadow(scene, spec) -> bool:
-    """Static gate for the FUSED shadow kernel (ops/pallas_shadow.py):
-    opaque any-hit + transparent transmittance for ALL lights in ONE
-    launch per bounce. Requires the fused-walk preconditions
-    (_use_tr_kernel) plus the single-level FLAT block tables the in-kernel
-    any-hit walks (flat2/tree scenes keep the two-launch path).
-
-    DEFAULT OFF (PT_FUSED_SHADOW=1 opt-in): value-identical and ~7%
-    faster as a standalone stage, but in the full textured-showcase
-    program XLA's memory-space assignment then stops keeping the
-    wide-texel gather table (tex_wide, ~17 MB) VMEM-resident, and the
-    SHADING-path gather goes 2.4 -> 13.5 ms/bounce — a net e2e loss
-    (3.68 -> 3.36 Mray/s; plain factor-only scenes measure exactly
-    neutral). Chunked launches, tighter declared VMEM limits, and an
-    ordering barrier all failed to restore the prefetch (round-5 PERF.md
-    "fused shadow kernel"); revisit if XLA's MSA heuristics change."""
-    import os
-
-    if os.environ.get("PT_FUSED_SHADOW") != "1":
-        return False
-    if not _use_tr_kernel(scene, spec):
-        return False
-    if scene.num_real_triangles == 0:
-        return False
-    from path_tracer_tpu.ops.intersect import (_device_sort,
-                                               _walk_variant)
-
-    return _walk_variant(scene) == "flat" and not _device_sort()
-
-
-def _shadow_attenuation_fused(scene, s_o, dirs, actives, colors, spec,
-                              steps, point_dists, surf_pos, orig_model_uv):
-    """All L lights' shadow attenuations via ONE fused kernel launch
-    (opaque any-hit + transparent transmittance — ops/pallas_shadow.py).
-
-    Value-identical to occluded_multi + _shadow_attenuation_multi: the
-    kernel runs the same shared tile functions (flat_occ_set, trans_tile);
-    the any-hit t_max and sphere-occlusion terms reproduce
-    ops.intersect.occluded_multi's formulas; still-walking lanes past the
-    step cap continue in the exact stacked cast residual."""
-    from path_tracer_tpu.ops import pallas_trwalk as twk
-    from path_tracer_tpu.ops.pallas_shadow import fused_shadow
-
-    L = len(dirs)
-    r = s_o.shape[0]
-    att0s = [jnp.where(actives[i][:, None],
-                       jnp.broadcast_to(colors[i], s_o.shape), 0.0)
-             for i in range(L)]
-    kcap = min(steps, twk.TRWALK_K)
-    inf = jnp.full((r,), jnp.inf, jnp.float32)
-
-    t_maxes, pds, is_pt, in_ranges = [], [], [], []
-    for i in range(L):
-        d = dirs[i]
-        md = point_dists[i]
-        if md is None:
-            tm = inf
-            pd_raw = inf
-            in_ranges.append(lambda t: True)
-        else:
-            # Exact positive root of |o + t d - surf| = max_dist (the
-            # any-hit range limit; ops.intersect.occluded_multi).
-            bvec = s_o - surf_pos
-            b_dot_d = _dot(bvec, d)
-            b_sq = _dot(bvec, bvec)
-            d_sq = _dot(d, d)
-            limit_sq = md * md
-            disc = b_dot_d**2 - d_sq * (b_sq - limit_sq)
-            tm = (-b_dot_d + jnp.sqrt(jnp.maximum(disc, 0.0))) / d_sq
-
-            def in_range(t, b_dot_d=b_dot_d[:, None], b_sq=b_sq[:, None],
-                         d_sq=d_sq[:, None], limit_sq=limit_sq[:, None]):
-                return t * t * d_sq + 2.0 * t * b_dot_d + b_sq <= limit_sq
-
-            in_ranges.append(in_range)
-            pd_raw = md
-        t_maxes.append(jnp.where(actives[i], tm, -1.0))
-        # Transmittance window: active, non-zero light color, and the
-        # 32-box transparent-cluster prefilter (blocked lanes fold inside
-        # the kernel — the any-hit result gates the walk in-kernel).
-        cnz = jnp.sum(jnp.abs(att0s[i]), axis=-1) != 0.0
-        walk = actives[i] & cnz & _hits_transparent_bounds(
-            scene, s_o, d, pd_raw * 1.0001 + 1e-3)
-        pds.append(jnp.where(walk, pd_raw, -1.0))
-        is_pt.append(md is not None)
-
-    trans_eff, t_prev, still = fused_shadow(
-        scene, s_o, dirs, t_maxes, pds, tuple(is_pt), surf_pos,
-        orig_model_uv[0], orig_model_uv[1], kcap,
-        interpret=_tr_kernel_interpret(), live=spec.differentiable)
-
-    if kcap < steps:
-        # Exact stacked cast residual for lanes past the kernel step cap
-        # (same contract as _shadow_attenuation_multi), gated by lax.cond.
-        # ALL stacked-array construction happens INSIDE the taken branch:
-        # materializing the [L*R] concats unconditionally measured
-        # ~13.5 ms/bounce of pure HBM traffic for a residual that never
-        # runs on the measured scenes (round-5 profile).
-        from path_tracer_tpu.scene.device_scene import transparent_view
-
-        tv = transparent_view(scene)
-        trans3 = trans_eff.reshape(L * r)
-        tprev3 = t_prev.reshape(L * r)
-        still3 = still.reshape(L * r)
-
-        def residual(trans3, tprev3, still3):
-            o3 = jnp.concatenate([s_o] * L, axis=0)
-            d3 = jnp.concatenate(dirs, axis=0)
-            pd3 = jnp.concatenate(
-                [inf if point_dists[i] is None else point_dists[i]
-                 for i in range(L)], axis=0)
-            ispt3 = jnp.concatenate(
-                [jnp.full((r,), point_dists[i] is not None)
-                 for i in range(L)])
-            sp3 = jnp.concatenate([surf_pos] * L, axis=0)
-            ouv3 = jnp.concatenate([orig_model_uv[0]] * L, axis=0)
-            osimple3 = jnp.concatenate([orig_model_uv[1]] * L, axis=0)
-
-            def cond(carry):
-                k, trans, t_p, walking = carry
-                return (k < steps) & jnp.any(walking)
-
-            def step(carry):
-                k, trans, t_p, walking = carry
-                hit = closest_hit(o3, d3, t_p, tv, block=spec.tri_block,
-                                  active=walking if scene.use_bvh else None,
-                                  include_spheres=False,
-                                  defer_prim=_defer_prim(scene))
-                found = walking & hit.valid
-                walk_row = _tri_attr(scene, hit)
-                model, uv, simple = _hit_model_uv(scene, hit, row=walk_row)
-                occ_pos = o3 + d3 * jnp.where(
-                    jnp.isfinite(hit.t), hit.t, 0.0)[:, None]
-                occ_dist = jnp.linalg.norm(occ_pos - sp3, axis=-1)
-                found = found & ~(ispt3 & (occ_dist > pd3))
-                uv = jnp.where(ispt3[:, None], ouv3, uv)
-                simple = jnp.where(ispt3, osimple3, simple)
-                op = texturing.sample_opacity(
-                    scene, model, uv, simple,
-                    rows=None if spec.differentiable else walk_row)
-                trans = jnp.where(found, trans * (1.0 - op), trans)
-                walking = found & (trans != 0.0)
-                t_p = jnp.where(walking, hit.t, t_p)
-                return (k + 1, trans, t_p, walking)
-
-            return jax.lax.while_loop(
-                cond, step, (jnp.int32(kcap), trans3, tprev3, still3))[1]
-
-        trans3 = jax.lax.cond(
-            jnp.any(still3), residual,
-            lambda trans3, tprev3, still3: trans3,
-            trans3, tprev3, still3)
-        trans_eff = jax.lax.stop_gradient(trans3).reshape(L, r)
-
-    # Opaque-sphere occlusion (partitioned scenes require opaque spheres)
-    # stays in XLA, exactly as in ops.intersect.occluded_multi.
-    outs = []
-    sph = scene.num_real_spheres != 0
-    if sph:
-        from path_tracer_tpu.ops.intersect import _sphere_quadratic
-    for i in range(L):
-        att = att0s[i] * trans_eff[i][:, None]
-        if sph:
-            a, b, cc = _sphere_quadratic(s_o, dirs[i], scene)
-            disc = b * b - 4.0 * a * cc
-            has = disc >= 0.0
-            sq = jnp.sqrt(jnp.where(has, disc, 0.0))
-            t1 = (-b - sq) / (2.0 * a)
-            t2 = (-b + sq) / (2.0 * a)
-            v1 = has & (t1 >= 0.0) & in_ranges[i](t1)
-            v2 = has & (t2 >= 0.0) & in_ranges[i](t2)
-            att = jnp.where(jnp.any(v1 | v2, axis=1)[:, None], 0.0, att)
-        outs.append(att)
-    return outs
-
-
 def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, spec, steps,
                               point_dists, surf_pos, orig_model_uv, blockeds):
     """All L lights' partitioned shadow attenuations in ONE stacked walk.
 
-    The opaque any-hit half is already batched (occluded_multi); this stacks
-    the TRANSPARENT transmittance walks too: lanes for all L lights
+    The opaque any-hit half comes in as ``blockeds``; this stacks the
+    TRANSPARENT transmittance walks: lanes for all L lights
     concatenate into one [L*R] wavefront, so the chunked while_loop and its
-    per-iteration cast + gathers launch once instead of L times (the
-    transparent casts are launch-overhead-bound: 0.32 ms per 2048-lane
-    chunk, PERF.md round 3). Per-lane semantics identical to
+    per-iteration cast + gathers launch once instead of L times. Per-lane
+    semantics identical to
     _shadow_attenuation: directional lanes sample the occluder's OWN uv and
     have no behind-light cutoff (point_dist = +inf); point lanes use the
     ORIGINAL hit's UV/type (ref mod.rs:324 quirk) and the behind-light
@@ -1355,8 +972,7 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, spec, steps,
             k, trans, t_prev, walking = carry
             hit = closest_hit(s_o, s_d, t_prev, tv, block=spec.tri_block,
                               active=walking if scene.use_bvh else None,
-                              include_spheres=False,
-                              defer_prim=_defer_prim(scene))
+                              include_spheres=False)
             found = walking & hit.valid
             walk_row = _tri_attr(scene, hit)
             model, uv, simple = _hit_model_uv(scene, hit, row=walk_row)
@@ -1376,49 +992,6 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, spec, steps,
 
         return cond, step
 
-    if _use_tr_kernel(scene, spec):
-        # Fused in-kernel transmittance walk over the stacked [L*R] lanes
-        # (ops/pallas_trwalk.py); exact cast residual past the step cap.
-        from path_tracer_tpu.ops import pallas_trwalk as twk
-
-        kcap = min(steps, twk.TRWALK_K)
-
-        def run_kernel(o3, d3, pd3, is_pt, sp3, ouv3, osimple3, walking0):
-            return twk.trans_walk_kernel(
-                scene, o3, d3, pd3, is_pt, sp3, ouv3, osimple3, walking0,
-                kcap, interpret=_tr_kernel_interpret(),
-                live_factor=spec.differentiable)
-
-        def no_walk(o3, d3, pd3, is_pt, sp3, ouv3, osimple3, walking0):
-            return (jnp.ones((n,), jnp.float32),
-                    jnp.full((n,), -1.0, jnp.float32),
-                    jnp.zeros((n,), jnp.bool_))
-
-        trans3, t_prev3, still3 = jax.lax.stop_gradient(jax.lax.cond(
-            jnp.any(walking0), run_kernel, no_walk,
-            o3, d3, pd3, is_pt, sp3, ouv3, osimple3, walking0))
-        if kcap < steps:
-            # Residual gated by lax.cond (see _alpha_walk_partitioned).
-            condf, stepf = cast_step(o3, d3, pd3, is_pt, sp3, ouv3,
-                                     osimple3)
-
-            def residual(trans3, t_prev3, still3):
-                return jax.lax.while_loop(
-                    condf, stepf,
-                    (jnp.int32(kcap), trans3, t_prev3, still3))[1]
-
-            trans3 = jax.lax.cond(
-                jnp.any(still3), residual,
-                lambda trans3, t_prev3, still3: trans3,
-                trans3, t_prev3, still3)
-            trans3 = jax.lax.stop_gradient(trans3)
-        outs = []
-        for i in range(L):
-            trans = trans3[i * r : (i + 1) * r]
-            att = att0s[i] * trans[:, None]
-            outs.append(jnp.where(blockeds[i][:, None], 0.0, att))
-        return outs
-
     dense = _use_dense_tr(scene)
     if dense:
         # Dense column walk over the stacked [L*R] wavefront (see
@@ -1426,9 +999,8 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, spec, steps,
         # precompute, unrolled column product, exact cast residual.
         kk = _dense_k(scene, steps)
 
-        def produce(o3, d3, act):
-            ts, pos = _dense_tr_hits(scene, o3, d3, steps, act,
-                                     t_max=pd3 * 1.0001 + 1e-3)
+        def produce(o3, d3):
+            ts, pos = _dense_tr_hits(scene, o3, d3, steps)
             hit = _dense_hit_columns(scene, o3, d3, ts, pos)
             walk_row = _tri_attr(scene, hit)
             model, uv, simple = _hit_model_uv(scene, hit, row=walk_row)
@@ -1443,9 +1015,9 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, spec, steps,
         tcols, opcols = jax.lax.stop_gradient(jax.lax.cond(
             jnp.any(walking0),
             produce,
-            lambda a, b, c: (jnp.full((kk * n,), jnp.inf, jnp.float32),
-                             jnp.zeros((kk * n,), jnp.float32)),
-            o3, d3, walking0))
+            lambda a, b: (jnp.full((kk * n,), jnp.inf, jnp.float32),
+                          jnp.zeros((kk * n,), jnp.float32)),
+            o3, d3))
         tcols = _cols(tcols, kk, n)
         opcols = _cols(opcols, kk, n)
 
@@ -1620,11 +1192,9 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
             pt_dirs.append(to_surf / dist[:, None])  # light → surface
             pt_dists.append(dist)
 
-        # Fully opaque scenes: ALL lights' shadow casts in ONE any-hit
-        # launch (ops.intersect.occluded_multi batches the triangle walk;
-        # per-tile fixed costs are paid once, not per light). Partitioned
-        # mixed-opacity scenes batch the same way against the OPAQUE subset
-        # (the binary half of the partitioned attenuation walk).
+        # Fully opaque scenes: every light's any-hit query up front.
+        # Partitioned mixed-opacity scenes query the OPAQUE subset the same
+        # way (the binary half of the partitioned attenuation walk).
         from path_tracer_tpu.scene.device_scene import (
             opaque_view,
             partitioned,
@@ -1633,11 +1203,7 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
         blocked_all = None
         n_lights = scene.num_dir_lights + scene.num_point_lights
         part = partitioned(scene)
-        # FUSED shadow path: opaque any-hit + transmittance for ALL lights
-        # in ONE kernel launch per bounce (ops/pallas_shadow.py).
-        fused = (part and not scene.all_opaque and n_lights >= 1
-                 and _use_fused_shadow(scene, spec))
-        if ((scene.all_opaque or part) and n_lights > 1) or fused:
+        if (scene.all_opaque or part) and n_lights > 1:
             dirs_all, dists_all, act_all = [], [], []
             for li in range(scene.num_dir_lights):
                 sd = jnp.broadcast_to(-scene.dir_dir[li], d.shape)
@@ -1648,35 +1214,19 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
                 dirs_all.append(-pt_dirs[li])
                 dists_all.append(pt_dists[li])
                 act_all.append(shadow_active(-pt_dirs[li]))
-            if not fused:
-                from path_tracer_tpu.ops.intersect import occluded_multi
+            from path_tracer_tpu.ops.intersect import occluded
 
-                blocked_all = occluded_multi(
-                    shadow_o, dirs_all,
-                    opaque_view(scene) if part else scene,
-                    surf_pos=surf.pos, max_dists=dists_all,
-                    actives=act_all, block=spec.tri_block)
+            blocked_all = [
+                occluded(shadow_o, sd, opaque_view(scene) if part else scene,
+                         surf_pos=surf.pos, max_dist=md,
+                         block=spec.tri_block, active=act)
+                for sd, md, act in zip(dirs_all, dists_all, act_all)]
 
         # Partitioned mixed-opacity scenes additionally run ALL lights'
         # transparent transmittance walks as ONE stacked chunked walk
-        # (launch-overhead-bound otherwise; _shadow_attenuation_multi) —
-        # or, on the fused path, BOTH halves in the one fused launch.
+        # (_shadow_attenuation_multi).
         att_pre = None
-        if fused:
-            colors_all = ([scene.dir_color[li]
-                           for li in range(scene.num_dir_lights)]
-                          + [1.0] * scene.num_point_lights)
-            # Schedule the fused-kernel input prep (the [3L,R] transposes/
-            # stacks) strictly AFTER the shading-path texture gathers:
-            # without this barrier XLA hoists the ~75 MB of prep buffers
-            # over the gathers, evicting the gather tables' VMEM prefetch
-            # (wide-texel gather measured 2.4 -> 13.5 ms/bounce; round-5
-            # profile "fusion.524 vs fusion.369").
-            shadow_o_b, _ = jax.lax.optimization_barrier((shadow_o, mat))
-            att_pre = _shadow_attenuation_fused(
-                scene, shadow_o_b, dirs_all, act_all, colors_all, spec,
-                shadow_steps, dists_all, surf.pos, (surf.uv, surf.simple))
-        elif part and blocked_all is not None and not scene.all_opaque:
+        if part and blocked_all is not None and not scene.all_opaque:
             colors_all = ([scene.dir_color[li]
                            for li in range(scene.num_dir_lights)]
                           + [1.0] * scene.num_point_lights)

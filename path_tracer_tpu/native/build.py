@@ -1,15 +1,14 @@
 """ctypes loader + Python entry for the C++ BVH builder (native/bvh.cpp).
 
-Compiles the shared library on first use with g++ -O3 (no pybind11 in the
-image; plain C ABI + ctypes per the environment constraints) and caches the
-.so keyed on a source hash.
+Compiles the shared library on first use with g++ -O3 (plain C ABI +
+ctypes, no pybind11) and caches the .so under the checkout's ``.cache/native``
+keyed on a source hash.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import subprocess
-import tempfile
 from pathlib import Path
 from typing import NamedTuple
 
@@ -21,7 +20,9 @@ _LIB = None
 
 def _compile() -> Path:
     digest = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:16]
-    so_path = Path(tempfile.gettempdir()) / f"libptt_bvh_{digest}.so"
+    from path_tracer_tpu.utils.cache import cache_dir
+
+    so_path = cache_dir("native") / f"libptt_bvh_{digest}.so"
     if not so_path.exists():
         tmp = so_path.with_suffix(f".{id(object())}.tmp.so")
         subprocess.run(

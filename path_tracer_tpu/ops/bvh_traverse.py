@@ -1,11 +1,12 @@
 """Stackless skip-pointer BVH traversal for a ray wavefront (pure jnp).
 
 Replaces the reference's kdtree-ray traversal (ref: src/renderer/utils.rs:13,
-src/scene/internal/model.rs:67-70) with the TPU shape of the same idea: every
+src/scene/internal/model.rs:67-70) with the wavefront shape of the same idea: every
 lane walks the flattened DFS node array with ``i`` (hit → i+1, miss/leaf →
 skip[i]), inside one ``lax.while_loop`` that runs until every lane escapes.
 Node and triangle data are packed into single rows so each step issues one
-gather per table instead of six (HBM-gather bound on TPU).
+gather per table instead of six. This is the plain reference of the GPU
+kernels in ops/bvh_triton.py, which walk the same tables.
 
 Closest-hit semantics are identical to ops.intersect.closest_hit_triangles:
 Möller-Trumbore with det cutoff 1e-6, t > max(1e-6, t_prev), no backface

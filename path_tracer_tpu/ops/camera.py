@@ -11,6 +11,7 @@ fov is the VERTICAL field of view in radians.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from path_tracer_tpu.ops import rng
@@ -40,6 +41,9 @@ def generate_rays(pixel_ids, width: int, height: int, scene, sample_id, seed: in
 
     d_cam = jnp.stack([sx, sy, -jnp.ones_like(sx)], axis=-1)
     d_cam = d_cam / jnp.linalg.norm(d_cam, axis=-1, keepdims=True)
-    d_world = d_cam @ scene.cam_to_world[:3, :3].T
+    # HIGHEST: an f32 matmul may otherwise run in TF32 on the GPU, which
+    # keeps ~3 decimal digits of the ray direction.
+    d_world = jnp.matmul(d_cam, scene.cam_to_world[:3, :3].T,
+                         precision=jax.lax.Precision.HIGHEST)
     origin = jnp.broadcast_to(scene.cam_to_world[:3, 3], d_world.shape)
     return origin, d_world

@@ -2,7 +2,7 @@
 
 The reference seeds an ``StdRng`` per (pixel, sample)
 (ref: src/renderer/mod.rs:110-112) so results are independent of thread
-scheduling. The TPU equivalent must additionally be *shard-invariant*: a pixel
+scheduling. The wavefront equivalent must additionally be *shard-invariant*: a pixel
 must get the same stream no matter which chip or tile renders it. We therefore
 hash (pixel_id, sample_id, site, seed) directly with a counter-based mixer —
 no sequential state at all. Streams are decorrelated and deterministic but NOT

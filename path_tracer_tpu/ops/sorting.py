@@ -1,8 +1,8 @@
 """Wavefront ray sorting for traversal coherence.
 
-The packet BVH kernel (ops/pallas_bvh.py) traverses with one node cursor per
-RAY_TILE-lane tile, so its cost is the tile's UNION of per-ray node paths.
-Camera wavefronts are naturally coherent (adjacent pixel ids); bounce and
+The GPU BVH kernel (ops/bvh_triton.py) walks one ray per lane, and a block of
+lanes runs until its slowest lane exits, so its cost follows the divergence
+of the rays within a block. Camera wavefronts are naturally coherent (adjacent pixel ids); bounce and
 shadow wavefronts are not. Sorting rays by a (origin-cell, direction-octant)
 Morton key before the cast groups similar rays into the same tile — the
 classic wavefront-tracer compaction step (SURVEY §5 "long-context" analog) —
@@ -62,15 +62,12 @@ def morton_pixel_order(width: int, height: int, tile: int = 16):
 
     Pixels grouped into tile x tile screen blocks (tile-major, raster within
     the block): a 256-lane packet then covers a 16x16 screen square instead
-    of a 256x1 scanline strip. Measured on the 100k-tri showcase (v5e,
-    2^18 rays): flat-kernel closest hit 22.5 ms in this order vs 66.9 ms in
-    scanline order vs 25.5 ms device-Morton-sorted — host ordering beats the
-    device sort AND saves the ~20 ms sort+gather per cast, so the renderer
-    feeds wavefronts in this order and casts skip device sorting entirely.
+    of a 256x1 scanline strip, so neighbouring lanes trace neighbouring
+    rays, and the renderer feeds wavefronts in this order instead of
+    sorting rays on the device.
 
-    Cached per (width, height, tile): the 1080p argsort costs ~0.9 s of host
-    time, ~5% of a 16-spp showcase frame when recomputed per render call
-    (measured by tests/tools/bench_probe.py).
+    Cached per (width, height, tile): the 1080p argsort is host work that
+    would otherwise repeat on every render call.
     """
     return _morton_pixel_order_cached(width, height, tile)
 

@@ -11,8 +11,8 @@ Parity with the reference's Material getters (src/scene/internal/material.rs):
 - Sphere hits use factor-only "simple" samples (material_sample.rs:31-40).
 - roughness is clamped to >= 1e-4 (material_sample.rs:23).
 
-Gather economics (TPU): each [R]-indexed gather costs about the same
-regardless of row width, so sampling cost is measured in GATHER COUNT.
+Gather economics: each [R]-indexed gather pays a per-lane latency that
+barely depends on row width, so sampling cost is counted in GATHERS.
 The rows-based paths (baked sl_attr columns) fetch a texel with exactly ONE
 atlas gather — the texture id, factor, and the atlas offset/width/height all
 ride the wide row gather the caller already paid for (ATTR_*_G columns,

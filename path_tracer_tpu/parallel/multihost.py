@@ -4,12 +4,13 @@ The reference is single-process (rayon threads only, SURVEY §2c). Scaling
 beyond one host rides `jax.distributed` + the same 1-D `shard_map` mesh used
 intra-host: pixel tiles shard globally, the scene replicates per chip, and
 the only cross-host traffic is the gradient psum (and the final image
-gather), which XLA routes over ICI within a slice and DCN across slices.
+gather), which XLA routes over NVLink within a host and the network across
+hosts.
 
 Usage on each host::
 
     from path_tracer_tpu.parallel import multihost
-    multihost.initialize()              # env-driven (TPU pods auto-detect)
+    multihost.initialize(addr, n, i)    # coordinator, process count, rank
     mesh = multihost.global_mesh()      # 1-D mesh over ALL hosts' devices
     # render_sharded / make_train_step work unchanged with this mesh;
     # feed each host its addressable shard of the pixel-id array.
@@ -23,10 +24,9 @@ from path_tracer_tpu.parallel.mesh import DP_AXIS
 
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None) -> None:
-    """jax.distributed.initialize with TPU-pod auto-detection defaults.
-
-    On Cloud TPU pods all arguments are discovered from the environment;
-    pass explicit values for other fabrics.
+    """jax.distributed.initialize. Pass the coordinator address
+    (``host:port``), the process count and this process's rank unless the
+    cluster environment provides them.
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -211,19 +211,27 @@ class _TextureWriter:
         return self._get("gray", gray)
 
     def save(self, out_dir: Path) -> None:
-        from PIL import Image
+        from path_tracer_tpu.utils.image_io import save_png
 
         for path, img in self.images.values():
-            mode = "L" if img.ndim == 2 else "RGB"
-            Image.fromarray(img, mode).save(out_dir / path)
+            save_png(img, out_dir / path)
 
 
 def _decode_image(gltf: _Gltf, texture_index: int) -> np.ndarray:
-    """Texture index → RGBA uint8 array."""
-    from PIL import Image
+    """Texture index → RGBA uint8 array. PNG images decode with the
+    package's own codec; other formats (JPEG) need Pillow."""
+    from path_tracer_tpu.utils import image_io
 
     tex = gltf.doc["textures"][texture_index]
     raw = gltf.image_bytes(tex["source"])
+    if raw[:8] == b"\x89PNG\r\n\x1a\n":
+        return image_io.to_rgba(*image_io.decode_png(raw))
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError("this glTF embeds a non-PNG (e.g. JPEG) texture; "
+                           "decoding it needs Pillow (pip install pillow)") \
+            from e
     img = Image.open(io.BytesIO(raw))
     return np.asarray(img.convert("RGBA"), np.uint8)
 

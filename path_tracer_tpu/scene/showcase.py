@@ -78,18 +78,11 @@ def _tile_noise(size: int, octaves: int, seed: int) -> np.ndarray:
     return h
 
 
-def _save_gray(arr01: np.ndarray, path: Path) -> None:
-    from PIL import Image
+def _save_u8(arr01: np.ndarray, path: Path) -> None:
+    """Write a [H,W] gray or [H,W,3] RGB array in [0,1] as an 8-bit PNG."""
+    from path_tracer_tpu.utils.image_io import save_png
 
-    u8 = np.clip(arr01 * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(u8, "L").save(path)
-
-
-def _save_rgb(arr01: np.ndarray, path: Path) -> None:
-    from PIL import Image
-
-    u8 = np.clip(arr01 * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(u8, "RGB").save(path)
+    save_png(np.clip(arr01 * 255.0 + 0.5, 0, 255).astype(np.uint8), path)
 
 
 def leaf_alpha_mask(s: int = 256) -> np.ndarray:
@@ -124,7 +117,7 @@ def generate_showcase_textures(out_dir) -> None:
     # Albedo textures are sRGB: the sampler linearizes texels with pow 2.2
     # (ref material.rs:137-141), so the PNG stores the 1/2.2 encoding of the
     # intended linear color.
-    _save_rgb(albedo ** (1 / 2.2), out / "terrain_albedo.png")
+    _save_u8(albedo ** (1 / 2.2), out / "terrain_albedo.png")
 
     # Terrain normal map 512^2 from a noise heightfield (tangent space,
     # decoded px/127.5-1 by the sampler — ref material.rs:178-187).
@@ -134,11 +127,11 @@ def generate_showcase_textures(out_dir) -> None:
     amp = 24.0
     nrm = np.stack([-gx * amp, -gy * amp, np.ones_like(hf)], axis=-1)
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-    _save_rgb(nrm * 0.5 + 0.5, out / "terrain_normal.png")
+    _save_u8(nrm * 0.5 + 0.5, out / "terrain_normal.png")
 
     # Terrain roughness 512^2 gray in [0.45, 0.95].
     rough = 0.45 + 0.5 * _tile_noise(512, 5, 104)
-    _save_gray(rough, out / "terrain_rough.png")
+    _save_u8(rough, out / "terrain_rough.png")
 
     # Leaf card albedo + alpha cutout 256^2. The alpha mask is mostly hard
     # (0/1) with a soft rim so the stochastic accept test (op in (0.001, 1))
@@ -147,12 +140,12 @@ def generate_showcase_textures(out_dir) -> None:
     yy, xx = np.mgrid[0:s, 0:s].astype(np.float64) / (s - 1)
     cx, cy = xx - 0.5, yy - 0.55
     alpha = leaf_alpha_mask()
-    _save_gray(alpha, out / "leaf_alpha.png")
+    _save_u8(alpha, out / "leaf_alpha.png")
     vein = np.clip(1.0 - 6.0 * np.abs(cx - 0.25 * cy * np.sin(cy * 7)), 0, 1)
     leaf_rgb = np.stack([
         0.10 + 0.12 * vein, 0.34 + 0.25 * vein * (1 - yy * 0.5),
         0.06 + 0.08 * vein], axis=-1)
-    _save_rgb(np.clip(leaf_rgb, 0, 1) ** (1 / 2.2), out / "leaf_albedo.png")
+    _save_u8(np.clip(leaf_rgb, 0, 1) ** (1 / 2.2), out / "leaf_albedo.png")
 
     # Emissive billboard 256x128: bright diagonal stripes. The emissive
     # texture is sampled WITHOUT sRGB linearization (ref quirk,
@@ -162,16 +155,15 @@ def generate_showcase_textures(out_dir) -> None:
     stripe = 0.5 + 0.5 * np.sin((xx2 + 2 * yy2) * 0.12)
     emis = np.stack([stripe, 0.4 + 0.6 * stripe ** 2,
                      1.0 - 0.7 * stripe], axis=-1)
-    _save_rgb(np.clip(emis, 0, 1), out / "billboard_emissive.png")
+    _save_u8(np.clip(emis, 0, 1), out / "billboard_emissive.png")
 
     marker.touch()
 
 
 def default_texture_dir() -> Path:
-    import os
+    from path_tracer_tpu.utils.cache import cache_dir
 
-    return Path(os.path.expanduser(
-        f"~/.cache/path_tracer_tpu/showcase_tex_{TEX_VERSION}"))
+    return cache_dir(f"showcase_tex_{TEX_VERSION}")
 
 
 def showcase_scene(grid: int = 224, seed: int = 7,
@@ -261,7 +253,7 @@ def showcase_scene(grid: int = 224, seed: int = 7,
         # entirely 1 stay in this (transparent-material) mesh but the scene
         # builder's per-triangle classification moves them to the OPAQUE
         # partition — only the cutout RIM cells need the stochastic walk.
-        CELLS = 1  # tessellated cells measured NET-NEGATIVE (PERF.md r3)
+        CELLS = 1  # tessellated cells lost end to end on the earlier accelerator
         amask = leaf_alpha_mask()
         ah, aw = amask.shape
         cell_max = np.zeros((CELLS, CELLS))

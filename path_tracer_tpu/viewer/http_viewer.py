@@ -18,7 +18,6 @@ Interactivity (the analog of viewer.rs:61-81's window-event handling):
 """
 from __future__ import annotations
 
-import io
 import json
 import threading
 import time
@@ -174,11 +173,9 @@ class ProgressiveViewer:
     def update(self, image_u8: np.ndarray, samples_done: int = 0,
                samples_total: int = 0, rays_done: int = 0) -> None:
         """Push the latest tonemapped frame ([H,W,3] uint8) + progress."""
-        from PIL import Image
+        from path_tracer_tpu.utils.image_io import encode_png
 
-        buf = io.BytesIO()
-        Image.fromarray(np.asarray(image_u8, np.uint8), "RGB").save(buf, "PNG")
-        png = buf.getvalue()
+        png = encode_png(np.asarray(image_u8, np.uint8))
         elapsed = time.time() - self._t0
         if self._server is not None:
             with self._lock:

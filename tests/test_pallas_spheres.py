@@ -1,111 +1,7 @@
-"""Fused sphere kernel parity vs the jnp reference path (interpret mode).
-
-t tolerance is 1e-3 relative: the jnp path computes the quadratic's c term
-as |o|^2 - 2 o.c + (|c|^2 - r^2) (MXU matmul grouping) while the kernel uses
-the reference's (o-c).(o-c) - r^2 — near-tangent hits amplify the rounding
-difference through the discriminant cancellation.
+"""Sphere block tables (scene/device_scene._sphere_blocks): every real
+sphere sits in exactly one block, and each block's AABB bounds its spheres.
 """
-import jax.numpy as jnp
 import numpy as np
-
-def test_sphere_kernel_matches_reference(reference_scenes):
-    from path_tracer_tpu.ops.intersect import closest_hit_spheres
-    from path_tracer_tpu.ops.pallas_spheres import closest_hit_spheres_pallas
-    from path_tracer_tpu.scene import load_scene
-
-    scene = load_scene(reference_scenes / "spheres" / "scene.isf")
-    rng = np.random.default_rng(4)
-    r = 700  # not a RAY_TILE multiple (exercises padding)
-    o = jnp.asarray(rng.uniform(-4, 4, (r, 3)).astype(np.float32))
-    tgt = jnp.asarray(rng.uniform(-3, 3, (r, 3)).astype(np.float32))
-    d = tgt - o
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    for tpv in (-1.0, 1.0):
-        tp = jnp.full((r,), tpv, jnp.float32)
-        ref = closest_hit_spheres(o, d, tp, scene)
-        pk = closest_hit_spheres_pallas(o, d, tp, scene, interpret=True)
-        np.testing.assert_array_equal(np.asarray(ref.kind), np.asarray(pk.kind))
-        np.testing.assert_array_equal(np.asarray(ref.prim), np.asarray(pk.prim))
-        np.testing.assert_allclose(np.asarray(ref.t), np.asarray(pk.t),
-                                   rtol=1e-3, atol=1e-6)
-        np.testing.assert_array_equal(np.asarray(ref.backface),
-                                      np.asarray(pk.backface))
-        assert float(jnp.mean(ref.valid)) > 0.3
-
-
-def test_sphere_kernel_chunked_big_table():
-    """Sphere-HEAVY scene (4900 spheres): the kernel streams 512-column
-    chunks with a running best, so big tables never blow the VMEM scoped
-    stack (a 4900-sphere scene crashed Mosaic compilation before the
-    chunked rewrite). Cross-chunk argmin ties must keep the smallest
-    index, matching the jnp reference."""
-    from path_tracer_tpu.ops.intersect import closest_hit_spheres
-    from path_tracer_tpu.ops.pallas_spheres import closest_hit_spheres_pallas
-    from path_tracer_tpu.scene.procedural import sphere_grid_device_scene
-
-    import dataclasses
-
-    scene = sphere_grid_device_scene(70)  # 4900 spheres
-    assert scene.sph_packed_t.shape[1] % 512 == 0  # chunkable padding
-    assert scene.sph_use_blocks  # dispatch default: the BLOCK walk
-    rng = np.random.default_rng(9)
-    r = 512
-    o = jnp.asarray(rng.uniform(-45, 45, (r, 3)).astype(np.float32))
-    tgt = jnp.asarray(rng.uniform(-38, 38, (r, 3)).astype(np.float32))
-    d = tgt - o
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    tp = jnp.full((r,), -1.0, jnp.float32)
-    ref = closest_hit_spheres(o, d, tp, scene)
-    # BOTH kernel paths: the block walk (big-scene default) AND the dense
-    # chunked-streaming kernel (forced by clearing the dispatch flag) must
-    # match the jnp reference — the dense chunk logic stays load-bearing
-    # for <= 512-sphere scenes and must not rot behind the block path.
-    dense_scene = dataclasses.replace(scene, sph_use_blocks=False)
-    for label, sc in (("block", scene), ("dense-chunked", dense_scene)):
-        pk = closest_hit_spheres_pallas(o, d, tp, sc, interpret=True)
-        # Near-tangent hits can flip prim between the division and the
-        # multiply-by-reciprocal forms of the root (1-ulp discriminant
-        # differences); at 4900-sphere density a few grazing lanes flip —
-        # bound the RATE.
-        mism = np.asarray(ref.prim) != np.asarray(pk.prim)
-        assert mism.mean() <= 0.01, f"{label}: flip rate {mism.mean():.3f}"
-        ok = ~mism
-        np.testing.assert_allclose(np.asarray(ref.t)[ok],
-                                   np.asarray(pk.t)[ok],
-                                   rtol=1e-3, atol=1e-6, err_msg=label)
-    assert float(jnp.mean(ref.valid)) > 0.3
-
-
-def test_sphere_occ_kernel_chunked_big_table():
-    from path_tracer_tpu.ops.pallas_spheres import occluded_spheres_pallas
-    from path_tracer_tpu.ops.intersect import closest_hit_spheres
-    from path_tracer_tpu.scene.procedural import sphere_grid_device_scene
-
-    import dataclasses
-
-    scene = sphere_grid_device_scene(70)
-    rng = np.random.default_rng(10)
-    r = 512
-    o = jnp.asarray(rng.uniform(-45, 45, (r, 3)).astype(np.float32))
-    tgt = jnp.asarray(rng.uniform(-38, 38, (r, 3)).astype(np.float32))
-    d = tgt - o
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    ref = closest_hit_spheres(o, d, jnp.full((r,), -1.0, jnp.float32), scene)
-    t_ref = np.where(np.isfinite(np.asarray(ref.t)), np.asarray(ref.t), 500.0)
-    above_np = (t_ref * 1.01).astype(np.float32)
-    # Dead-lane marker contract: t_max = -1 lanes occlude nothing, on BOTH
-    # kernel paths (the block walk must not inherit the flat-triangle
-    # kernel's start-occluded seeding — the scene's sphere count must not
-    # change the API's dead-lane semantics).
-    dead = np.arange(r) % 7 == 0
-    above_np[dead] = -1.0
-    above = jnp.asarray(above_np)
-    want = (np.asarray(ref.t) <= above_np) & ~dead
-    dense_scene = dataclasses.replace(scene, sph_use_blocks=False)
-    for label, sc in (("block", scene), ("dense-chunked", dense_scene)):
-        occ = occluded_spheres_pallas(o, d, above, sc, interpret=True)
-        np.testing.assert_array_equal(np.asarray(occ), want, err_msg=label)
 
 
 def test_sphere_block_tables_invariants():

@@ -10,7 +10,7 @@ sorted-hit walks with one opaque cast + a transparent-only walk
 - subset casts against the views agree with the full-scene cast,
 - the partitioned integrator matches the generic walk to fp-tie tolerance
   (different traversal order can flip shared-edge t ties),
-- the flat Pallas kernel (interpret mode) agrees on view tables.
+- the GPU BVH kernel (Triton route, interpret mode) agrees on view tables.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -108,10 +108,14 @@ def test_subset_casts_compose_to_full(mixed_scene):
 
 
 def test_flat_kernel_on_views_interpret(mixed_scene):
-    """The flat Pallas kernel walking a VIEW's sliced tables (interpret
-    mode) matches the CPU forest walk on the same subset."""
+    """The GPU BVH kernel (interpret mode) walking a VIEW's tables (the
+    opaque prefix of the forest, the transparent tree) matches the CPU
+    forest walk on the same subset, closest hit and any hit."""
     from path_tracer_tpu.ops.bvh_traverse import closest_hit_triangles_bvh
-    from path_tracer_tpu.ops.pallas_bvh import closest_hit_triangles_flat
+    from path_tracer_tpu.ops.bvh_triton import (
+        closest_hit_triangles_kernel,
+        occluded_triangles_kernel,
+    )
 
     s = mixed_scene
     r = 256
@@ -119,11 +123,16 @@ def test_flat_kernel_on_views_interpret(mixed_scene):
     tp = jnp.full((r,), -1.0, jnp.float32)
     for view in (opaque_view(s), transparent_view(s)):
         ref = closest_hit_triangles_bvh(o, d, tp, view)
-        got = closest_hit_triangles_flat(o, d, tp, view, interpret=True)
+        got = closest_hit_triangles_kernel(o, d, tp, view, interpret=True)
         np.testing.assert_array_equal(np.asarray(got.prim),
                                       np.asarray(ref.prim))
         np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
                                    rtol=5e-5, atol=1e-5)
+        occ = occluded_triangles_kernel(
+            o, d, jnp.full((r,), jnp.inf, jnp.float32), view,
+            interpret=True)
+        np.testing.assert_array_equal(np.asarray(occ),
+                                      np.asarray(ref.valid))
 
 
 def test_partitioned_render_matches_generic(mixed_scene, monkeypatch):
@@ -170,43 +179,6 @@ def test_partitioned_render_matches_generic_differentiable(mixed_scene,
     assert abs(float(la) - float(lb)) <= 1e-4, (float(la), float(lb))
     assert abs(float(ga) - float(gb)) <= 1e-2 * max(1.0, abs(float(gb))), \
         (float(ga), float(gb))
-
-
-def test_khit_kernel_matches_jnp_producer(mixed_scene):
-    """k_nearest_tr_hits (interpret mode) vs the jnp matrix producer: both
-    must emit the SAME (ts, pos) contract — ascending t, strict-duplicate
-    skipping, +inf past the end, lowest-index ties — and the kernel's
-    per-group t_max pruning may only drop hits beyond t_max."""
-    from path_tracer_tpu.models.integrator import _dense_tr_hits
-    from path_tracer_tpu.ops.pallas_intersect import k_nearest_tr_hits
-
-    s = mixed_scene
-    r = 512
-    o, d = _rays(s, r, 3)
-    act = jnp.ones((r,), jnp.bool_)
-    K = 4
-    ts_k, pos_k = k_nearest_tr_hits(o, d, act, s, K, interpret=True)
-    ts_j, pos_j = _dense_tr_hits(s, o, d, K, act)
-    tk, tj = np.asarray(ts_k), np.asarray(ts_j)
-    fin_k, fin_j = np.isfinite(tk), np.isfinite(tj)
-    assert fin_j.any()
-    # Interpret-mode vs compiled-CPU lowering differ by FMA contraction —
-    # last-ulp t noise, so tolerance (not equality) on t; an ulp swap of
-    # two near-equal hits can flip pos order on a handful of entries.
-    np.testing.assert_array_equal(fin_k, fin_j)
-    np.testing.assert_allclose(tk[fin_k], tj[fin_j], rtol=1e-6)
-    pos_match = (np.asarray(pos_k)[fin_k] == np.asarray(pos_j)[fin_j])
-    assert pos_match.mean() >= 0.99, pos_match.mean()
-    # t_max pruning (kernel vs SAME kernel, exact): nothing reachable lost,
-    # nothing invented.
-    tmax = jnp.full((r,), 14.0)
-    ts_m, _ = k_nearest_tr_hits(o, d, act, s, K, t_max=tmax, interpret=True)
-    tsm = np.asarray(ts_m)
-    for i in range(r):
-        a = set(tsm[:, i][np.isfinite(tsm[:, i])].tolist())
-        b = tk[:, i][fin_k[:, i]]
-        assert a >= set(b[b <= 14.0].tolist())
-        assert a <= set(b.tolist())
 
 
 def test_dense_residual_cast_fallback(mixed_scene, monkeypatch):
@@ -261,24 +233,24 @@ def test_dense_tr_walk_matches_cast_walk(mixed_scene, monkeypatch):
 
 
 def test_flat2_on_partitioned_tables_interpret(mixed_scene):
-    """flat2 addresses triangle windows by BLOCK ID from the bid table, not
-    by column position — the opacity partition leaves a 128-aligned column
-    gap between the opaque and transparent ranges (column != id), which a
-    position-addressed visit would read out of bounds (review round 3)."""
+    """The GPU BVH kernel (interpret mode) on the FULL partitioned forest:
+    the walk crosses from the opaque tree into the transparent tree through
+    the skip pointers, and prim ids stay global across the partition
+    boundary."""
     from path_tracer_tpu.ops.bvh_traverse import closest_hit_triangles_bvh
-    from path_tracer_tpu.ops.pallas_bvh import closest_hit_triangles_flat2
+    from path_tracer_tpu.ops.bvh_triton import closest_hit_triangles_kernel
 
     s = mixed_scene
-    assert s.sl_cols_opaque > s.sl_n_blocks_opaque  # a real column gap
+    assert s.bvh_n_nodes > s.bvh_n_nodes_opaque  # a real forest
     r = 256
     o, d = _rays(s, r, 21)
     tp = jnp.full((r,), -1.0, jnp.float32)
     ref = closest_hit_triangles_bvh(o, d, tp, s)
-    got = closest_hit_triangles_flat2(o, d, tp, s, interpret=True)
+    got = closest_hit_triangles_kernel(o, d, tp, s, interpret=True)
     np.testing.assert_array_equal(np.asarray(got.prim), np.asarray(ref.prim))
     np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
                                rtol=5e-5, atol=1e-5)
-    # Some hits must land in the TRANSPARENT range for the gap to matter.
+    # Some hits must land in the TRANSPARENT range for the forest to matter.
     hits = np.asarray(ref.prim)[np.isfinite(np.asarray(ref.t))]
     assert (hits >= s.n_tris_opaque).any()
 

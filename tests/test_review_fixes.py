@@ -99,13 +99,13 @@ def test_rebalance_rejects_indivisible_wavefront():
 
 def test_axis_aligned_ray_on_block_plane_hits():
     """A ray with a zero direction component whose origin lies EXACTLY on a
-    block-bound plane must still hit (1/d = inf used to poison the slab
-    test with 0 * inf = NaN and silently drop the block)."""
-    from path_tracer_tpu.ops.intersect import closest_hit_triangles
-    from path_tracer_tpu.ops.pallas_bvh import (
-        closest_hit_triangles_flat,
-        occluded_triangles_flat,
+    box-bound plane must still hit (1/d = inf poisons the slab test with
+    0 * inf = NaN, which must not silently drop the box)."""
+    from path_tracer_tpu.ops.bvh_triton import (
+        closest_hit_triangles_kernel,
+        occluded_triangles_kernel,
     )
+    from path_tracer_tpu.ops.intersect import closest_hit_triangles
     from path_tracer_tpu.scene import isf
     from path_tracer_tpu.scene.device_scene import build_device_scene
 
@@ -139,12 +139,12 @@ def test_axis_aligned_ray_on_block_plane_hits():
     tp = jnp.full((1,), -1.0, jnp.float32)
 
     ref = closest_hit_triangles(o, d, tp, dev, block=dev.sl_block)
-    got = closest_hit_triangles_flat(o, d, tp, dev, interpret=True)
+    got = closest_hit_triangles_kernel(o, d, tp, dev, interpret=True)
     assert bool(np.asarray(ref.kind)[0] > 0), "brute reference must hit"
-    assert bool(np.asarray(got.kind)[0] > 0), "flat kernel dropped the block"
+    assert bool(np.asarray(got.kind)[0] > 0), "BVH kernel dropped the box"
     np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
                                rtol=1e-5)
 
-    occ = occluded_triangles_flat(o, d, jnp.asarray([2.0], jnp.float32),
-                                  dev, interpret=True)
-    assert bool(np.asarray(occ)[0]), "occlusion kernel dropped the block"
+    occ = occluded_triangles_kernel(o, d, jnp.asarray([2.0], jnp.float32),
+                                    dev, interpret=True)
+    assert bool(np.asarray(occ)[0]), "any-hit kernel dropped the box"

@@ -1,8 +1,8 @@
 """Samples-per-wavefront packing parity (renderer.py _accumulate_tile spw).
 
 spw packs each pixel spw times into a kernel packet with consecutive
-per-lane sample ids, shrinking the packet's screen footprint (PERF.md,
-tests/tools/spw_probe.py). The per-(pixel, sample) RNG streams must be
+per-lane sample ids, shrinking the packet's screen footprint. The
+per-(pixel, sample) RNG streams must be
 IDENTICAL to the spw=1 schedule — only float accumulation order may differ,
 so the pixel sums must match to addition-reorder tolerance.
 """
@@ -14,7 +14,7 @@ def _tile_sums(scene, W, H, ids_pix, n_samples, spec, spw):
     import jax.numpy as jnp
 
     from path_tracer_tpu.models.renderer import _accumulate_tile
-    from path_tracer_tpu.ops.pallas_bvh import RAY_TILE
+    from path_tracer_tpu.models.renderer import RAY_TILE
 
     if spw == 1:
         lanes = ids_pix
@@ -32,7 +32,7 @@ def _tile_sums(scene, W, H, ids_pix, n_samples, spec, spw):
 @pytest.mark.parametrize("spw", [2, 4])
 def test_spw_matches_unpacked(reference_scenes, name, spw):
     from path_tracer_tpu.models.integrator import IntegratorSpec
-    from path_tracer_tpu.ops.pallas_bvh import RAY_TILE
+    from path_tracer_tpu.models.renderer import RAY_TILE
     from path_tracer_tpu.scene import load_scene
 
     scene = load_scene(reference_scenes / name / "scene.isf")

@@ -17,11 +17,6 @@ from pathlib import Path
 
 CONSTRAINTS = Path(__file__).resolve().parents[2] / "constraints.txt"
 
-# Accelerator plugins: absent on a CPU-only host (e.g. the GH runner) is
-# fine; present-at-the-wrong-version is still an error.
-OPTIONAL = {"libtpu"}
-
-
 def parse_pins() -> dict[str, str]:
     pins: dict[str, str] = {}
     for line in CONSTRAINTS.read_text().splitlines():
@@ -41,8 +36,7 @@ def check() -> list[str]:
         try:
             got = md.version(name)
         except md.PackageNotFoundError:
-            if name not in OPTIONAL:
-                errors.append(f"{name}: not installed (pinned {want})")
+            errors.append(f"{name}: not installed (pinned {want})")
             continue
         if got != want:
             errors.append(f"{name}: {got} != pinned {want}")

@@ -10,7 +10,6 @@ binary asset lives in the repo.
 """
 from __future__ import annotations
 
-import io
 import json
 import struct
 
@@ -18,15 +17,13 @@ import numpy as np
 
 
 def _checker_png(n: int = 64) -> bytes:
-    from PIL import Image
+    from path_tracer_tpu.utils.image_io import encode_png
 
     yy, xx = np.mgrid[0:n, 0:n]
     c = ((xx // 8 + yy // 8) % 2).astype(np.uint8)
     img = np.stack([40 + 180 * c, 120 + 60 * c, 60 + 40 * (1 - c)],
                    axis=-1).astype(np.uint8)
-    buf = io.BytesIO()
-    Image.fromarray(img, "RGB").save(buf, "PNG")
-    return buf.getvalue()
+    return encode_png(img)
 
 
 def _terrain(n: int = 80):
@@ -86,7 +83,7 @@ def _cutout_png(n: int, kind: str) -> bytes:
     converter splits it into a separate gray opacity texture (ref
     gltf.rs:79-130). Two kinds so a multi-material GLB yields two DISTINCT
     opacity textures."""
-    from PIL import Image
+    from path_tracer_tpu.utils.image_io import encode_png
 
     yy, xx = np.mgrid[0:n, 0:n]
     cx, cy = (xx / n) * 2 - 1, (yy / n) * 2 - 1
@@ -101,9 +98,7 @@ def _cutout_png(n: int, kind: str) -> bytes:
         rgb = np.stack([180 + 0 * xx, 120 + 0 * xx, 70 + 0 * yy],
                        axis=-1).astype(np.uint8)
     img = np.concatenate([rgb, a[..., None]], axis=-1)
-    buf = io.BytesIO()
-    Image.fromarray(img, "RGBA").save(buf, "PNG")
-    return buf.getvalue()
+    return encode_png(img)
 
 
 def _wall(x0, z0, x1, z1, y0, y1, nx: int = 6, ny: int = 3):

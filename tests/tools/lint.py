@@ -99,7 +99,8 @@ def main() -> int:
     problems = []
     for sub in ("path_tracer_tpu", "tests", "examples"):
         problems.extend(lint_tree(repo / sub))
-    for f in ("bench.py", "bench_scaling.py", "__graft_entry__.py"):
+    for f in ("bench.py", "bench_scaling.py", "__graft_entry__.py",
+              "chip_smoke.py"):
         if (repo / f).exists():
             problems.extend(lint_file(repo / f))
     for p in problems:

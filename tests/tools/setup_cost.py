@@ -1,14 +1,13 @@
-"""Time the per-run setup inside render_pixel_sums vs the launch loop (TPU).
+"""Time the per-run setup inside render_pixel_sums vs the launch loop.
 
-bench.py times render_pixel_sums end-to-end; launch_pattern.py times only the
-launch loop with tile ids precomputed and measures ~3 Mray/s more. This
-isolates where the difference lives: morton ordering, host id packing, tile-id
-uploads, acc init, or the launch loop itself. Readback-terminated timing per
-PERF.md.
+bench.py times render_pixel_sums end to end. This isolates where host-side
+time lives: morton ordering, host id packing, tile-id uploads, acc init, or
+the launch loop itself. Run on the GPU:
+
+    python tests/tools/setup_cost.py
 """
 from __future__ import annotations
 
-import os
 import sys
 import time
 from pathlib import Path
@@ -22,10 +21,9 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/path_tracer_tpu/xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from path_tracer_tpu.utils.cache import enable_compilation_cache
 
+    enable_compilation_cache()
     from path_tracer_tpu.models.integrator import IntegratorSpec
     from path_tracer_tpu.models.renderer import (_accumulate_tile,
                                                  render_pixel_sums)
@@ -41,11 +39,11 @@ def main() -> None:
     SAMPLES = 16
     SPL = 4
 
-    # warm compile + flip readback mode
+    # warm compile
     acc = _accumulate_tile(jnp.zeros((tile, 3), jnp.float32), scene,
                            jnp.zeros((tile,), jnp.int32), W, H,
                            jnp.int32(1), SPL, spec)
-    np.asarray(acc[0, 0])
+    acc.block_until_ready()
 
     def t(label, fn, n=3):
         best = min(timeit(fn) for _ in range(n))
@@ -95,8 +93,7 @@ def main() -> None:
                 accs[i] = _accumulate_tile(accs[i], scene, tile_ids[i],
                                            W, H, jnp.int32(s), k, spec)
             s += k
-        for a in accs:
-            np.asarray(a[0, 0])
+        jax.block_until_ready(accs)
 
     dt = t("launch loop (16spp, ids hoisted)", loop, n=2)
     print(f"  -> {n_pix * SAMPLES * 6 / dt / 1e6:.2f} Mray/s", flush=True)
@@ -105,8 +102,7 @@ def main() -> None:
         accs = render_pixel_sums(scene, W, H, 1, SAMPLES, spec,
                                  tile_rays=tile, samples_per_launch=SPL,
                                  snapshot=False)
-        for a in accs:
-            np.asarray(a[0, 0])
+        jax.block_until_ready(accs)
 
     dt = t("render_pixel_sums (bench path)", full, n=2)
     print(f"  -> {n_pix * SAMPLES * 6 / dt / 1e6:.2f} Mray/s", flush=True)
@@ -131,8 +127,7 @@ def main() -> None:
                 accs[i] = _accumulate_tile(accs[i], scene, tids[i],
                                            W, H, jnp.int32(s), k, spec)
             s += k
-        for a in accs:
-            np.asarray(a[0, 0])
+        jax.block_until_ready(accs)
         t2 = time.perf_counter()
         print(f"inline fresh_ids={int(fresh_ids)}: setup {t1-t0:6.2f}s "
               f"loop {t2-t1:6.2f}s -> "

@@ -2,7 +2,7 @@
 
 Same trace plumbing as bench._stage_breakdown, but instead of kernel-family
 buckets it prints the top-N leaf ops with their source lines — the tool for
-deciding what "xla_other" actually is. Run standalone:
+deciding what "xla_other" actually is. Run on the GPU:
 
     python tests/tools/top_ops.py [N]
 """
@@ -13,6 +13,8 @@ import glob
 import gzip
 import json
 import os
+import re
+import shutil
 import sys
 import tempfile
 from pathlib import Path
@@ -26,18 +28,14 @@ def main() -> int:
     top_n = int(sys.argv[1]) if len(sys.argv) > 1 else 40
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/path_tracer_tpu/xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    import numpy as np
-
     from path_tracer_tpu.models.integrator import IntegratorSpec
     from path_tracer_tpu.models.renderer import render_pixel_sums
     from path_tracer_tpu.scene.showcase import showcase_device_scene
+    from path_tracer_tpu.utils.cache import enable_compilation_cache
 
-    os.environ.setdefault("PT_SPH_FUSE", "1")
+    enable_compilation_cache()
     scene = showcase_device_scene(
-        use_bvh=True, sl_block=int(os.environ.get("PT_SL_BLOCK", "256")),
+        use_bvh=True,
         textured=os.environ.get("BENCH_SCENE", "showcase") == "showcase")
     spec = IntegratorSpec(bounces=5, differentiable=False)
 
@@ -47,15 +45,18 @@ def main() -> int:
                                  snapshot=False)
 
     def sync(accs):
-        for a in accs:
-            np.asarray(a[0, 0])
+        jax.block_until_ready(accs)
 
     sync(run(1, 1))  # compile outside the trace
     d = tempfile.mkdtemp(prefix="pt_top_ops_")
     with jax.profiler.trace(d):
         sync(run(1, 999))
-    f = glob.glob(d + "/plugins/profile/*/*.trace.json.gz")[0]
-    data = json.load(gzip.open(f, "rt"))
+    found = glob.glob(d + "/plugins/profile/*/*.trace.json.gz")
+    if not found:
+        print(f"no trace produced under {d}", file=sys.stderr)
+        return 1
+    data = json.load(gzip.open(found[0], "rt"))
+    shutil.rmtree(d, ignore_errors=True)
     agg = collections.Counter()
     srcs = {}
     total = 0.0
@@ -65,18 +66,20 @@ def main() -> int:
         name = e.get("name", "")
         src = e["args"].get("source", "")
         if not src or "path_tracer_tpu" not in src:
-            continue
+            if not name.startswith(("bvh_closest", "bvh_anyhit")):
+                continue
         if name.startswith(("while", "cond", "jit")):
             continue
         # Strip trailing .N dedup suffixes so repeated instances aggregate;
         # key by (opname, source line) so distinct fusions stay distinct.
-        base = name.rstrip("0123456789").rstrip(".")
+        base = re.sub(r"\.\d+$", "", name)
         key = (base, src)
         agg[key] += e["dur"]
         total += e["dur"]
     print(f"total profiled device-op time: {total / 1e3:.1f} ms")
     for (name, src), dur in agg.most_common(top_n):
-        flag = "" if "pallas" in src else "  <-- xla_other"
+        flag = ("" if name.startswith(("bvh_closest", "bvh_anyhit"))
+                else "  <-- xla_other")
         print(f"{dur / 1e3:9.2f} ms  {100 * dur / total:5.1f}%  {name[:40]:40s}"
               f" {src[-55:]}{flag}")
     return 0
